@@ -1,16 +1,17 @@
-"""Aggregate ensemble throughput: R lock-step replicas on one chip.
+"""Aggregate ensemble throughput: R lock-step replicas on one GPU.
 
 BASELINE.md north-star arithmetic: the reference's natural parallelism is
 independent shell jobs on a multi-core node (SURVEY.md §2.11), so the chip
 must be compared at its own natural batch point — R vmapped replicas of the
 production interphase step (parallel/ensemble.py's vmapped segment), not a
 single replica.  This measures total bead-steps/s versus R at a fixed
-per-replica bead count, on the real chip:
+per-replica bead count:
 
     python bench_ensemble.py [n_beads] [R1,R2,...]
 
-Prints one JSON line per R; stop scaling when the marginal gain flattens
-(VPU-bound) or allocation fails (HBM-bound).
+Prints one JSON line per R, with the device it ran on; stop scaling when
+the marginal gain flattens (compute-bound) or allocation fails (out of
+device memory).  Fails without a GPU.
 """
 
 import dataclasses
@@ -26,6 +27,7 @@ sys.path.insert(0, ".")
 import bench  # noqa: E402
 import __graft_entry__ as ge  # noqa: E402
 from genome_cycle_tpu.models.interphase import ChunkStats, EngineSettings  # noqa: E402
+from genome_cycle_tpu.utils.runtime import enable_compile_cache, require_gpu  # noqa: E402
 from genome_cycle_tpu.ops.block_pairs import BlockGrid, build_structure  # noqa: E402
 from genome_cycle_tpu.ops.contact import empty_window_acc, merge_events_acc  # noqa: E402
 
@@ -33,6 +35,7 @@ CHUNK = 200
 
 
 def measure(n_beads: int, replicas: list[int]):
+    device = require_gpu()
     plan = bench._plan(n_beads)
     settings = EngineSettings(
         cell_capacity=plan["cell_capacity"],
@@ -45,7 +48,6 @@ def measure(n_beads: int, replicas: list[int]):
         dense_cell_scale=plan["bucket"],
         use_block_pairs=True,
         use_dense_grid=True,
-        use_pallas=False,
     )
     xs = [
         bench._chain_walk(n_beads, bench.CHAINS, plan["radius"], seed=s)
@@ -118,7 +120,7 @@ def measure(n_beads: int, replicas: list[int]):
             jax.block_until_ready(x)
             jax.block_until_ready(acc)
             dt = (time.perf_counter() - t0) / reps
-        except Exception as ex:  # noqa: BLE001 — HBM exhaustion ends the scan
+        except Exception as ex:  # noqa: BLE001 — out of memory ends the scan
             print(f"R={r}: failed ({type(ex).__name__}: {ex})",
                   file=sys.stderr)
             break
@@ -130,6 +132,9 @@ def measure(n_beads: int, replicas: list[int]):
             "steps_per_s": round(CHUNK / dt, 2),
             "aggregate_bead_steps_per_s": round(agg),
             "compile_s": round(compile_s, 1),
+            "platform": device["platform"],
+            "device_kind": device["kind"],
+            "device_count": device["count"],
         }
         results.append(res)
         print(json.dumps(res), flush=True)
@@ -143,4 +148,5 @@ if __name__ == "__main__":
         if len(sys.argv) > 2
         else [1, 2, 4, 6, 8]
     )
+    enable_compile_cache()
     measure(n_beads, rs)

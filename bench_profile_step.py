@@ -1,6 +1,9 @@
 """Profile a real interphase segment (pair + bonds + wall + BD + tick) and
-print per-step device-op costs — the in-chunk component breakdown
-(BASELINE.md component-timing table source)."""
+print per-step device-op costs — the in-chunk component breakdown.
+
+    N=99958 python bench_profile_step.py
+
+Fails without a GPU; the first line names the device."""
 
 import glob
 import gzip
@@ -8,6 +11,7 @@ import json
 import collections
 import os
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +21,13 @@ sys.path.insert(0, ".")
 import bench
 import __graft_entry__ as ge
 from genome_cycle_tpu.models.interphase import ChunkStats, EngineSettings
+from genome_cycle_tpu.utils.runtime import enable_compile_cache, require_gpu
 
+device = require_gpu()
+print(json.dumps({"platform": device["platform"],
+                  "device_kind": device["kind"],
+                  "device_count": device["count"]}), flush=True)
+enable_compile_cache()
 N = int(os.environ.get("N", "99958"))
 plan = bench._plan(N)
 settings = EngineSettings(
@@ -31,7 +41,6 @@ settings = EngineSettings(
     dense_cell_scale=plan["bucket"],
     use_block_pairs=True,
     use_dense_grid=True,
-    use_pallas=False,
 )
 x_host = bench._chain_walk(N, bench.CHAINS, plan["radius"])
 
@@ -63,10 +72,7 @@ carry = (x, key, semiaxes, ChunkStats.zero(jnp.float32))
 carry, ev = seg(carry, jnp.asarray(0))
 jax.block_until_ready(carry[0])
 
-out = "/tmp/stepprof"
-import shutil
-
-shutil.rmtree(out, ignore_errors=True)
+out = tempfile.mkdtemp(prefix="stepprof")
 with jax.profiler.trace(out):
     for k in range(3):
         carry, ev = seg(carry, jnp.asarray(20 * (k + 1)))
@@ -76,10 +82,16 @@ with jax.profiler.trace(out):
 f = sorted(glob.glob(out + "/plugins/profile/*/*.trace.json.gz"))[-1]
 with gzip.open(f) as fh:
     tr = json.load(fh)
+# Device planes are the trace processes named "/device:...".
+device_pids = {
+    e["pid"] for e in tr["traceEvents"]
+    if e.get("ph") == "M" and e.get("name") == "process_name"
+    and str(e.get("args", {}).get("name", "")).startswith("/device:")
+}
 agg = collections.Counter()
 cnt = collections.Counter()
 for e in tr["traceEvents"]:
-    if e.get("ph") == "X" and e.get("pid") == 3 and "dur" in e:
+    if e.get("ph") == "X" and e.get("pid") in device_pids and "dur" in e:
         agg[e["name"]] += e["dur"]
         cnt[e["name"]] += 1
 steps = 60.0

@@ -3,7 +3,7 @@
 Re-design of ``stage_anatelophase/simulation_driver.cpp`` (SURVEY.md §2.5):
 one coarse bead system (N ~ hundreds), two phases with a forcefield swap at
 the anaphase->telophase boundary.  The coarse system is small, so pairwise
-repulsion uses the dense masked O(N^2) path (MXU/VPU-friendly, no cell grid).
+repulsion uses the dense masked O(N^2) path (elementwise, no cell grid).
 """
 
 from __future__ import annotations

@@ -3,13 +3,20 @@
 Gracefully degrades to numpy implementations when no C++ toolchain is
 available; callers use :func:`merge_contact_events` / :func:`quantize_f64`
 without caring which backend ran.
+
+The library is built for a generic target of the host's architecture (no
+``-march=native``), and a digest of the source, the flags and the host is
+recorded beside it: a library whose record differs, for example one copied
+with the checkout from another machine, is rebuilt before it is loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
+import platform
 import subprocess
 import threading
 
@@ -18,6 +25,8 @@ import numpy as np
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE / "hostops.cpp"
 _LIB_PATH = _HERE / "_hostops.so"
+_STAMP_PATH = _HERE / "_hostops.so.sha256"
+_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib = None
 _tried = False
@@ -30,17 +39,18 @@ def _load():
             return _lib
         _tried = True
         try:
-            if (not _LIB_PATH.exists()) or (
-                _SRC.stat().st_mtime > _LIB_PATH.stat().st_mtime
-            ):
+            digest = _build_digest()
+            if not _LIB_PATH.exists() or _recorded_digest() != digest:
+                # Build beside the target and rename into place, so that a
+                # concurrent loader never maps a half-written file.
+                tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
                 subprocess.run(
-                    [
-                        "g++", "-O2", "-march=native", "-std=c++17", "-shared",
-                        "-fPIC", "-o", str(_LIB_PATH), str(_SRC),
-                    ],
+                    ["g++", *_FLAGS, "-o", str(tmp), str(_SRC)],
                     check=True,
                     capture_output=True,
                 )
+                os.replace(tmp, _LIB_PATH)
+                _STAMP_PATH.write_text(digest)
             lib = ctypes.CDLL(str(_LIB_PATH))
             lib.gct_quantize_f64.argtypes = [
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int,
@@ -57,6 +67,20 @@ def _load():
         except Exception:
             _lib = None
         return _lib
+
+
+def _build_digest() -> str:
+    h = hashlib.sha256(_SRC.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(f"{platform.node()} {platform.machine()}".encode())
+    return h.hexdigest()
+
+
+def _recorded_digest() -> str:
+    try:
+        return _STAMP_PATH.read_text().strip()
+    except OSError:
+        return ""
 
 
 def available() -> bool:

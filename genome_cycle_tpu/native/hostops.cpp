@@ -1,6 +1,6 @@
 // Native host-side runtime ops for the trajectory pipeline.
 //
-// The reference keeps its whole runtime in C++; in this framework the TPU
+// The reference keeps its whole runtime in C++; in this framework the device
 // compute path is JAX/XLA and the host runtime keeps the IO-adjacent hot
 // loops native: contact-map window merging (the per-chunk reduction feeding
 // /stages/interphase/<step>/contacts) and the mantissa quantizer

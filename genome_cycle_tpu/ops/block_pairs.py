@@ -1,4 +1,4 @@
-"""Sorted-block range pair engine: density-robust TPU formulation.
+"""Sorted-block range pair engine: density-robust formulation.
 
 The dense cell-slab engine (:mod:`dense_grid`) pays ``cells * 27 * M**2``
 pair lanes with M = the *globally densest* cell's capacity — one hot cell
@@ -26,19 +26,17 @@ candidates).  This module reformulates the same computation with lanes
    monotone.  Each block therefore reads 9 dynamic windows, not 27
    capacity-padded cell blocks;
 4. j-side channels are fetched as whole 128-lane rows (slice starts snapped
-   down to a row boundary): per-element gathers cost ~30x their bytes on
-   TPU — the element-gather variant of this engine ran 28x fewer lanes than
-   the slab engine at the same wall time; row gathers are the fast path;
+   down to a row boundary): contiguous row gathers instead of one gather
+   per element;
 5. pair math runs on dense (B, Wq) tiles per block and column — elementwise
-   VPU work — then reduces over the window axis and scatters back through
-   the sort permutation.
+   float32, no matrix product — then reduces over the window axis and
+   scatters back through the sort permutation.
 
 Total lanes = slots * 9 * Wq with slots = N + per-column padding.  Density
 skew widens the window *linearly* (a hot cell stretches only the slices
 containing it), the empty-cube overhead of the slab layout disappears
 (empty columns occupy no slots), and the largest temporary is a
-(slots/B, B, Wq) tile block — no multi-GB resident set at 100k beads (the
-slab engine's 27 unrolled offsets crashed the device there).
+(slots/B, B, Wq) tile block — no multi-GB resident set at 100k beads.
 
 Stencil-column intervals of one block can overlap when the grid is tiny
 (windows clipped across column edges); overlapping cells would
@@ -68,13 +66,15 @@ import jax.numpy as jnp
 import numpy as np
 
 _FAR = 1e15
-_ROW = 128   # j-side gather granularity (one lane tile)
+# Both sizes were chosen before the move to the H100 and are not yet
+# measured there.
+_ROW = 128   # j-side gather granularity (one row of lanes)
 _SUB = 2048  # max pair-block lane width per fused compute chunk: the
              # (n_blocks, B, Wq) elementwise temporaries scale with the
              # window width, and the relaxation structure's density skew
              # can push W past 7000 (probed on the 60k-bead hg38 spline
              # structure) — unchunked that is multiple GB per live
-             # temporary and crashed the TPU worker.
+             # temporary.
 
 # Overflow-channel flag: the column-padded layout needs more slots than the
 # grid's static capacity — some beads were dropped from the layout entirely.
@@ -194,10 +194,8 @@ def build_structure(grid: BlockGrid, positions, extras=(),
     if valid is not None:
         cid = jnp.where(valid, cid, grid.num_cells)
 
-    # One variadic sort carries every value channel with the key: element
-    # gathers through the permutation run on the TPU's scalar core and
-    # dominated the whole pair call (profiled ~20 ms at 100k beads); the
-    # sort's compare-exchanges move payloads on the vector units instead.
+    # One variadic sort carries every value channel with the key, instead
+    # of one element gather per channel through the permutation.
     chans = tuple(positions[:, k] for k in range(3)) + tuple(extras)
     sorted_ops = jax.lax.sort(
         (cid,) + chans + (jnp.arange(n, dtype=jnp.int32),), num_keys=1
@@ -449,11 +447,9 @@ def block_contact_events(grid: BlockGrid, positions, cutoff,
                          struct: BlockStructure | None = None):
     """All pairs within ``cutoff`` as a fixed-capacity event list, scatter-free.
 
-    A tick needs the (i, j) identity of every in-range pair.  Any
-    formulation that scatters from the full candidate-lane domain pays the
-    TPU's per-update scatter cost on N*9*Wq lanes — measured 2.4 s per tick
-    at 25k beads, 220x the pair force, with masks+cumsum at only 28 ms.
-    This extraction never scatters:
+    A tick needs the (i, j) identity of every in-range pair.  A formulation
+    that scatters from the full candidate-lane domain issues N*9*Wq
+    updates.  This extraction never scatters from that domain:
 
     1. hit masks are computed per column exactly as the pair force does,
        reduced to per-(row, column, 128-lane tile) counts, and stored as
@@ -464,7 +460,7 @@ def block_contact_events(grid: BlockGrid, positions, cutoff,
        offsets, its tile by comparing against the row's (9*K,) tile prefix
        (one 128-byte-granular row gather), and its lane by a cumsum over
        the tile's 128 stored mask bytes (another row gather) — all gathers
-       are row-granular, the fast TPU path.
+       are row-granular.
 
     Each unordered pair is emitted exactly once (sorted-index ownership
     i < j; no per-row capacity exists to balance).  Returns ``(events
@@ -566,7 +562,7 @@ def block_contact_events(grid: BlockGrid, positions, cutoff,
         """Locate one chunk of event indices; all temporaries are E-chunk
         sized (an adaptive capacity in the millions would otherwise hold
         ~10 E-sized temporaries per tick x 10 unrolled ticks — a 60k-bead
-        chunk compile demanded 58 GB of HBM before this bound)."""
+        chunk compile demanded 58 GB of device memory before this bound)."""
         e_ids = sl
         valid_e = e_ids < n_events
         row = row_of_e[e_ids]
@@ -715,9 +711,8 @@ def block_contact_rows(grid: BlockGrid, positions, cutoff, row_capacity: int,
         # Every in-bounds (row, slot) target is written by exactly one lane
         # (the prefix compaction guarantees it; rejected lanes aim at the
         # out-of-bounds dump column and are dropped).  Declaring that lets
-        # XLA parallelize the scatter — without it the TPU serializes all
-        # ~N*9*Wq updates (measured 2.45 s per tick at 25k beads, 220x the
-        # pair force).
+        # XLA parallelize the scatter instead of serializing all ~N*9*Wq
+        # updates.
         ids = ids.at[rows3, jnp.where(ok, slot, cap)].set(
             jnp.broadcast_to(sj3, slot.shape), mode="drop",
             unique_indices=True,

@@ -42,8 +42,8 @@ def shift_bond_forces(positions, offset, mask, energy_fn, coeff_fn):
 
     Chain bonds are (i, i+1) and intra-TAD loops (i, i+2) by construction,
     so the gather/scatter of :func:`pair_bond_forces` collapses into two
-    rolls — pure vector ops on TPU, where per-element gathers run on the
-    scalar core (profiled as several ms per step at 100k beads).
+    rolls — contiguous vector ops instead of per-element gathers and
+    scatter-adds.
 
     ``mask`` is (N,) bool: True where row i owns a bond to i + offset
     (False at chain tails); ``energy_fn``/``coeff_fn`` close over

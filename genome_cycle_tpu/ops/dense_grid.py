@@ -1,18 +1,17 @@
-"""Dense cell-slab pair engine: the TPU-fast formulation of the hot loop.
+"""Dense cell-slab pair engine: the gather-free formulation of the hot loop.
 
 The gather-based fold in :mod:`neighbor` is the readable reference
-implementation, but per-element gathers lower poorly on TPU (measured ~150 ms
-per 5k-bead step on v5e).  This module reformulates the O(N*nbr) pair
-computation with *zero gathers in the pair loop*:
+implementation.  This module reformulates the O(N*nbr) pair computation with
+*zero gathers in the pair loop*; it is an explicit opt-in for comparison
+(the sorted-block engine of :mod:`block_pairs` is the shipping path):
 
 1. beads are scattered once per step into a dense per-cell slab layout
    ``(nx, ny, nz, M)`` (M = per-cell capacity) — one N-sized scatter;
 2. the 27 neighbor-cell accesses become *static shifted slices* of the padded
    slab (free under XLA);
-3. pair interactions are dense (M, M) blocks per cell pair, with the
-   squared-distance cross term ``-2 a.b`` expressed as an (M,3)x(3,M) matmul
-   and the force reduction ``sum_j c_ij (a_i - b_j)`` as ``rowsum(c) a - c@B``
-   — both MXU contractions; only the O(M^2) coefficient math runs on the VPU;
+3. pair interactions are dense (M, jb) blocks per cell pair, computed
+   elementwise over per-coordinate planes (dx, r2, the force coefficient
+   and the ``sum_j c_ij (x_i - x_j)`` reduction) — no matrix product;
 4. results scatter back to bead order through the slab's bead-id map.
 
 Correctness contract matches :func:`neighbor.pairwise_forces_cell`: beads
@@ -149,12 +148,10 @@ def pair_forces_slab(grid: DenseGrid, slabs: Slabs, coeff_fn, energy_fn=None,
     broadcast blocks (..., M, jb).  Returns (force_slab (...,M,3), energy).
 
     All pair math is elementwise over per-coordinate planes — dense blocks
-    the VPU streams through with no gathers and no exotic contraction
-    shapes.  The j axis is processed in ``jb``-wide blocks so live
-    temporaries stay at (cells, M, jb) regardless of capacity: at M = 256
-    the unblocked (cells, M, M) dx/r2/c temporaries total ~10 GB at a 100k
-    nucleus and crash the device (observed twice in driver benches before
-    this bound existed).
+    with no gathers and no contraction.  The j axis is processed in
+    ``jb``-wide blocks so live temporaries stay at (cells, M, jb) regardless
+    of capacity: at M = 256 the unblocked (cells, M, M) dx/r2/c temporaries
+    total ~10 GB at a 100k nucleus.
     """
     m = grid.capacity
     if jb is None:

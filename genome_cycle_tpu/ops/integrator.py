@@ -1,6 +1,6 @@
 """Overdamped Langevin (Brownian dynamics) integration.
 
-TPU-native replacement for ``md::simulate_brownian_dynamics`` (SURVEY.md
+JAX replacement for ``md::simulate_brownian_dynamics`` (SURVEY.md
 §2.9): an Euler-Maruyama update
 
     x += mu * F * dt + sqrt(2 * mu * kT * dt) * xi,   xi ~ N(0, 1)

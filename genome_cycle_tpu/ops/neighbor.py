@@ -1,11 +1,12 @@
 """Neighbor engine: fixed-capacity cell list + masked candidate folds.
 
-TPU-native replacement for micromd's neighbor-pairwise forcefields and
+JAX replacement for micromd's neighbor-pairwise forcefields and
 ``md::neighbor_searcher`` (SURVEY.md §2.9): all shapes are static, the cell
 table is rebuilt by scatter (no host round-trips), and pair iteration is a
 dense fold over the 27 adjacent cells with validity masks — XLA fuses the
-gather + pair math + accumulation into HBM-friendly loops; the Pallas kernel
-in :mod:`pallas_kernels` implements the same contract for the hot path.
+gather + pair math + accumulation.  This gather fold is the readable
+reference (the test oracle); :mod:`block_pairs` implements the same contract
+for the hot path.
 
 Out-of-bounds beads are *clamped* to boundary cells: their true coordinates
 still enter the distance computation, so results stay correct as long as the
@@ -122,10 +123,9 @@ def neighbor_fold(grid: CellGrid, table, positions, kernel, init, query=None):
     - ``valid``  (Q, capacity) bool: real entry, j != i, neighbor cell in grid
 
     Coordinates travel as separate (Q, capacity) planes rather than a
-    (Q, capacity, 3) array: a 3-wide minor dimension pads to the 128-lane
-    TPU tile, so materialized gathers in that layout cost ~42x their true
-    size in HBM — at 100k beads x capacity 640 that is the difference
-    between 0.7 GB and 32 GB.
+    (Q, capacity, 3) array: a 3-wide minor dimension can be padded by the
+    compiler's layout to a full tile, multiplying the size of materialized
+    gathers many-fold.
 
     ``query``: optional ``(q_pos (Q,3), q_ids (Q,))`` restricting the i side
     to a subset of beads — the hook spatially-sharded devices use to compute
@@ -215,8 +215,8 @@ def pairwise_forces_dense(positions, coeff_fn, energy_fn=None, targets=None):
         pos = positions
         ids = jnp.arange(n, dtype=jnp.int32)
     m = pos.shape[0]
-    # Per-coordinate (m, m) planes: a 3-minor pair array would pad to the
-    # 128-lane TPU tile (42x HBM blowup at large m).
+    # Per-coordinate (m, m) planes: a 3-minor pair array can pad to a full
+    # layout tile (many-fold memory blowup at large m).
     dxs = tuple(pos[:, None, k] - pos[None, :, k] for k in range(3))
     r2 = dxs[0] * dxs[0] + dxs[1] * dxs[1] + dxs[2] * dxs[2]
     valid = ~jnp.eye(m, dtype=bool)

@@ -134,8 +134,8 @@ def run_ensemble_interphase(
                     return (*carry, ev)
 
                 # One jitted vmapped segment; segments dispatched from a
-                # host loop (nested scans crash the current TPU runtime —
-                # see InterphaseModel.make_interphase_chunk).
+                # host loop, the structure the single-replica chunk uses
+                # at large N (InterphaseModel.make_interphase_chunk).
                 vseg = jax.jit(jax.vmap(one_segment, in_axes=(0, 0, 0, 0, None)))
 
                 def chunk(x, key, semi, start):

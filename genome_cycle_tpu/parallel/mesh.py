@@ -9,9 +9,10 @@
   all-gather each step.  Wall axial reaction and overflow stats reduce with
   psum.  This is the "sequence parallel" analogue for bead count N.
 
-On a real pod slice the replica axis should map to DCN (independent work)
-and the beads axis to ICI (an all-gather of N*3 f32 per step rides the
-fast interconnect).
+Across hosts the replica axis should span the network between them
+(independent work) and the beads axis should stay inside one host, whose
+cards share a fast interconnect (NVLink on an H100 node): its per-step
+all-gather or halo traffic must not cross the network.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def initialize_distributed(
 ) -> None:
     """Multi-host entry point: join the distributed JAX runtime.
 
-    On TPU pods under a cluster manager all arguments auto-detect; for
-    manual launches (and the multi-process CPU validation path) pass them
+    Under a cluster manager JAX detects the arguments; for manual
+    launches (and the multi-process CPU validation path) pass them
     explicitly.  Idempotent — a second call on an already-initialized
     runtime is a no-op, so drivers can call it unconditionally.
     """
@@ -81,13 +82,14 @@ def initialize_distributed(
 def make_hybrid_mesh(
     n_replicas: int, n_bead_shards: int, devices=None
 ) -> Mesh:
-    """DCN-aware mesh: replica axis over hosts (DCN), beads over ICI.
+    """Host-aware mesh: replica axis across hosts, beads within a host.
 
     With one process this is exactly :func:`make_mesh`.  With multiple
     processes the replica axis is laid out so that replicas sharing a host
     are contiguous and the beads axis never crosses a host boundary —
-    replicas are independent work (no per-step traffic crosses DCN) while
-    the beads axis' per-step halo/all-gather traffic rides ICI.
+    replicas are independent work (no per-step traffic crosses the network
+    between hosts) while the beads axis' per-step halo/all-gather traffic
+    stays on the host's own interconnect.
     """
     if jax.process_count() == 1:
         return make_mesh(n_replicas, n_bead_shards, devices)
@@ -97,7 +99,7 @@ def make_hybrid_mesh(
     if n_replicas % n_hosts != 0:
         raise ValueError(
             f"replica axis ({n_replicas}) must divide over {n_hosts} hosts "
-            "so the beads axis stays inside one host's ICI domain"
+            "so the beads axis stays inside one host"
         )
     per_host_replicas = n_replicas // n_hosts
     by_proc: dict[int, list] = {}
@@ -116,6 +118,6 @@ def make_hybrid_mesh(
             np.asarray(local[:need]).reshape(per_host_replicas, n_bead_shards)
         )
     # Host-major replica ordering: each host's devices fill whole replica
-    # rows, so no beads-axis edge crosses a process (= DCN) boundary.
+    # rows, so no beads-axis edge crosses a process (= host) boundary.
     grid = np.concatenate(rows, axis=0)
     return Mesh(grid, axis_names=("replica", "beads"))

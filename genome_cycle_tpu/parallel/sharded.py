@@ -3,7 +3,7 @@
 One full G1 training step over a ("replica", "beads") mesh:
 
 - positions are replicated across the beads axis (N*3 f32 per replica — an
-  all-gather of this size per step rides ICI);
+  all-gather of this size per step over the cards' interconnect);
 - each device computes the expensive O(N·nbr) pairwise + wall forces ONLY for
   its owned row block of beads (the compute that dominates), while O(N)
   bonded forces are computed redundantly (cheaper than communicating them);

@@ -205,7 +205,7 @@ def test_interphase_segment_block_vs_gather(rng):
     def run(use_block):
         settings = EngineSettings(
             cell_capacity=64, contact_capacity=64, grid_bound=4.0,
-            dense_bound=2.0, use_dense_grid=False, use_pallas=False,
+            dense_bound=2.0, use_dense_grid=False,
             use_block_pairs=use_block, block_width=512,
             brute_force_threshold=0 if use_block else 16384,
         )

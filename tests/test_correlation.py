@@ -64,7 +64,7 @@ def run_jax_engine(x0, seed, nor_sites=0):
     from genome_cycle_tpu.models.interphase import ChunkStats, EngineSettings
     from genome_cycle_tpu.ops.contact import events_to_host, merge_window
 
-    # Run the SHIPPING TPU engine (sorted-block pair force + block contact
+    # Run the SHIPPING engine (sorted-block pair force + block contact
     # tick) through the gate, not a test-only formulation: the brute-force
     # threshold is lowered so the block path activates at this system size.
     # Generous static capacities: the walk-chain init is locally dense, and
@@ -78,7 +78,7 @@ def run_jax_engine(x0, seed, nor_sites=0):
     # 32-slot column padding inflates the layout ~7x (each 3-bead column
     # pads to 32), and candidate lanes with it — the gate ran >40 min per
     # file on the 2-core CPU box.  8 keeps lanes proportional to the
-    # system; the TPU-shaped default only matters at production column
+    # system; the default of 32 only matters at production column
     # fills.
     block = 8
     probe_grid = BlockGrid.cubic(

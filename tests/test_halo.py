@@ -138,7 +138,7 @@ def test_halo_replicas_diverge(rng):
 
 
 def make_block_model(temperature=1.0, n=256, chains=2):
-    """Same system with the sorted-block engine forced on (the TPU hot
+    """Same system with the sorted-block engine forced on (the hot
     path): brute-force threshold lowered so block_grid activates."""
     per = n // chains
     assigns = [
@@ -156,14 +156,14 @@ def make_block_model(temperature=1.0, n=256, chains=2):
     config = parse_config(json.dumps({"interphase": {"temperature": temperature}}))
     settings = EngineSettings(
         cell_capacity=64, contact_capacity=64, grid_bound=4.0,
-        dense_bound=2.0, use_dense_grid=False, use_pallas=False,
+        dense_bound=2.0, use_dense_grid=False,
         use_block_pairs=True, block_width=640, brute_force_threshold=0,
     )
     return InterphaseModel.from_design(design, config, settings)
 
 
 def test_halo_block_engine_matches_single_device(rng):
-    """The per-shard sorted-block pair engine (TPU hot path) through the
+    """The per-shard sorted-block pair engine (the hot path) through the
     halo exchange must reproduce the single-device block engine: positions
     to f32 summation tolerance at T=0, contact events exactly."""
     model = make_block_model(temperature=0.0)

@@ -72,7 +72,7 @@ def test_halo_driver_writes_reference_schema_trajectory(tmp_path):
     # scales with cell_capacity * (margin cell / cell)^3.
     settings = EngineSettings(
         cell_capacity=64, contact_capacity=128, grid_bound=4.0,
-        dense_bound=2.5, use_dense_grid=False, use_pallas=False,
+        dense_bound=2.5, use_dense_grid=False,
         use_block_pairs=True, block_width=640, brute_force_threshold=0,
         contact_margin=1.0,
     )
@@ -121,7 +121,7 @@ def test_halo_driver_drift_retry_recovers(tmp_path):
     run_prepare(path, config_path, chains_path, seed=13, log=logs.append)
     settings = EngineSettings(
         cell_capacity=64, contact_capacity=128, grid_bound=4.0,
-        dense_bound=2.5, use_dense_grid=False, use_pallas=False,
+        dense_bound=2.5, use_dense_grid=False,
         use_block_pairs=True, block_width=640, brute_force_threshold=0,
         # One 100-step chunk drifts ~sqrt(2*T*mob*dt*steps) ~ 0.045 per
         # bead; margin/2 = 0.02 must be exceeded.

@@ -1,7 +1,7 @@
 """Multi-host scaffolding: 2-process distributed runtime over CPU devices.
 
-SURVEY.md §2.11/§5.8: the replica axis maps to DCN (independent work), the
-beads axis to ICI.  Real multi-host hardware is absent here, so the
+SURVEY.md §2.11/§5.8: the replica axis spans hosts (independent work), the
+beads axis stays inside one host.  Real multi-host hardware is absent here, so the
 scaffolding is validated the JAX-blessed way: two OS processes join one
 distributed runtime through a coordinator and execute a fully sharded step
 on the global hybrid mesh (one replica per "host", beads axis inside each

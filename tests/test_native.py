@@ -38,3 +38,17 @@ def test_merge_contacts_empty():
         np.zeros(0, np.uint64), np.zeros(0, np.int64)
     )
     assert len(uk) == 0 and len(uc) == 0
+
+
+def test_stale_record_forces_a_rebuild(monkeypatch):
+    # A library whose recorded digest differs (e.g. copied with the checkout
+    # from another machine) is rebuilt before it is loaded.
+    assert native.available()
+    native._STAMP_PATH.write_text("0" * 64)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    assert native.available()
+    assert native._recorded_digest() == native._build_digest()
+    got = native.quantize_f64(np.asarray([1.0 / 3.0]), 16)
+    mant, exp = np.frexp(1.0 / 3.0)
+    assert got[0] == np.ldexp(np.rint(np.ldexp(mant, 16)), exp - 16)

@@ -221,7 +221,7 @@ def test_dense_slab_overflow_detected(rng):
 
 
 def test_interphase_segment_events_dense_vs_gather(rng):
-    """The TPU segment (slab tick search) and the CPU segment (gather tick
+    """The dense-slab segment (slab tick search) and the gather segment (gather tick
     search) produce identical contact events and positions from the same
     carry (pair forces take the same brute path at this size, so positions
     are bitwise equal and only the contact formulation differs)."""
@@ -254,7 +254,7 @@ def test_interphase_segment_events_dense_vs_gather(rng):
     def run(use_dense):
         settings = EngineSettings(
             cell_capacity=64, contact_capacity=64, grid_bound=4.0,
-            dense_bound=2.0, use_dense_grid=use_dense, use_pallas=False,
+            dense_bound=2.0, use_dense_grid=use_dense,
         )
         model = InterphaseModel.from_design(design, config, settings)
         x0 = jnp.asarray(

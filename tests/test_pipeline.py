@@ -76,9 +76,9 @@ def cycle_file(tmp_path_factory):
         transition_interphase(store, log=logs.append)
         run_interphase(
             store,
-            # The gather-fold pair engine: the dense-slab path is tuned for
-            # TPU and is wasteful on the CPU test mesh (it is covered by the
-            # slab-vs-brute-force equivalence test instead).
+            # The gather-fold pair engine: the dense-slab path is wasteful
+            # on the CPU test mesh (it is covered by the slab-vs-brute-force
+            # equivalence test instead).
             settings=EngineSettings(
                 cell_capacity=128, contact_capacity=128, grid_bound=9.0,
                 use_dense_grid=False,
@@ -288,3 +288,27 @@ def test_interphase_checkpoint_resume(cycle_file, tmp_path):
         assert np.isfinite(store.load_positions(400)).all()
         # Checkpoint cleared after completion.
         assert store.load_checkpoint() is None
+
+
+def test_cli_cycles_runs_one_whole_cycle(tmp_path, monkeypatch):
+    """`cli cycles -n 1` end to end: prepare plus every stage of the cycle
+    into one reference-schema trajectory file."""
+    from genome_cycle_tpu import cli
+
+    # The cache location is honoured as given; JAX's own configuration is
+    # left alone.
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
+    config_path, chains_path = write_inputs(tmp_path)
+    prefix = str(tmp_path / "run_")
+    cli.main(["cycles", "-n", "1", "-s", "7", "-o", prefix, config_path,
+              chains_path])
+    with SimulationStore(prefix + "cell_0.h5") as store:
+        for stage in ("anaphase", "telophase", "relaxation", "interphase",
+                      "prometaphase"):
+            store.set_stage(stage)
+            steps = store.load_steps()
+            assert steps, stage
+            assert np.isfinite(store.load_positions(steps[-1])).all()
+        store.set_stage("interphase")
+        assert store.load_steps() == [0, 100, 200, 300, 400]
+        assert store.load_contacts(400) is not None

@@ -7,6 +7,7 @@ import pytest
 from genome_cycle_tpu.config import parse_config
 from genome_cycle_tpu.store import (
     InterphaseContext,
+    MemoryFile,
     SimulationStore,
     prepare_store,
     quantize_positions,
@@ -30,14 +31,26 @@ CHAINS = (
 )
 
 
-@pytest.fixture
-def store_file(tmp_path):
+def _prepared(target):
     cfg = parse_config('{"interphase":{"steps":100}}')
     chains = load_chains(CHAINS)
     topo = compile_topology(chains, cfg)
-    path = str(tmp_path / "cell.h5")
-    prepare_store(path, cfg, chains, topo, master_seed=12345)
-    return path
+    prepare_store(target, cfg, chains, topo, master_seed=12345)
+    return target
+
+
+@pytest.fixture
+def store_file(tmp_path):
+    return _prepared(str(tmp_path / "cell.h5"))
+
+
+@pytest.fixture(params=["hdf5", "memory"])
+def store_target(request, tmp_path):
+    """A prepared trajectory: an HDF5 file, or the in-memory stand-in the
+    stages use where h5py is missing.  Both go through the same loaders."""
+    if request.param == "hdf5":
+        return _prepared(str(tmp_path / "cell.h5"))
+    return _prepared(MemoryFile())
 
 
 def test_schema_layout(store_file):
@@ -80,9 +93,9 @@ def test_schema_layout(store_file):
         assert int(f["/stages/prometaphase/metadata/seed"][()]) == 717421070
 
 
-def test_positions_round_trip(store_file, rng):
+def test_positions_round_trip(store_target, rng):
     pos = rng.normal(size=(7, 3))
-    with SimulationStore(store_file) as store:
+    with SimulationStore(store_target) as store:
         store.set_stage("anaphase")
         store.save_positions(0, pos)
         store.append_frame(0)
@@ -105,8 +118,8 @@ def test_quantization():
     np.testing.assert_array_equal(quantize_positions(q), q)
 
 
-def test_clear_frames(store_file):
-    with SimulationStore(store_file) as store:
+def test_clear_frames(store_target):
+    with SimulationStore(store_target) as store:
         store.set_stage("interphase")
         store.append_frame(0)
         store.append_frame(10)
@@ -115,7 +128,7 @@ def test_clear_frames(store_file):
         assert store.load_steps() == []
 
 
-def test_context_round_trip(store_file):
+def test_context_round_trip(store_target):
     ctx = InterphaseContext(
         time=0.5,
         wall_semiaxes=(2.0, 2.1, 2.2),
@@ -123,7 +136,7 @@ def test_context_round_trip(store_file):
         bond_scale=0.8,
         mean_energy=1.5,
     )
-    with SimulationStore(store_file) as store:
+    with SimulationStore(store_target) as store:
         store.set_stage("interphase")
         store.save_interphase_context(0, ctx)
         got = store.load_interphase_context(0)
@@ -140,9 +153,9 @@ def test_context_round_trip(store_file):
     ]
 
 
-def test_contacts_round_trip(store_file):
+def test_contacts_round_trip(store_target):
     contacts = np.array([[0, 1, 5], [0, 2, 3], [5, 9, 1]], dtype=np.int32)
-    with SimulationStore(store_file) as store:
+    with SimulationStore(store_target) as store:
         store.set_stage("interphase")
         store.save_contacts(0, contacts)
         got = store.load_contacts(0)
@@ -152,8 +165,8 @@ def test_contacts_round_trip(store_file):
         assert store.load_contacts(20) is None
 
 
-def test_design_loaders(store_file):
-    with SimulationStore(store_file) as store:
+def test_design_loaders(store_target):
+    with SimulationStore(store_target) as store:
         inter = store.load_interphase_design()
         assert inter.seed == 1798476213
         assert [c.name for c in inter.chains] == ["chr1:a", "chr2:a"]
@@ -167,3 +180,26 @@ def test_design_loaders(store_file):
         pro = store.load_prometaphase_design()
         assert pro.sister_chromatids.shape == (2, 2)
         np.testing.assert_allclose(pro.pole_positions[1], [0, 5, 0])
+
+
+def test_memory_file_types_links_and_checkpoint():
+    target = _prepared(MemoryFile())
+    with SimulationStore(target) as store:
+        types, enum = store.load_particle_types("interphase")
+        assert types.shape == (708,) and enum["nucleolus"] == 7
+        # Soft links resolve to the interphase metadata.
+        np.testing.assert_array_equal(
+            store.file["/stages/relaxation/metadata/particle_types"], types
+        )
+        store.set_stage("interphase")
+        assert store.load_checkpoint() is None
+        store.save_checkpoint(40, {"positions": np.ones((3, 3)),
+                                   "key": np.asarray([1, 2], np.uint32)})
+        ck = store.load_checkpoint()
+        assert ck["step"] == 40 and sorted(ck) == ["key", "positions", "step"]
+        np.testing.assert_array_equal(ck["key"], [1, 2])
+        store.clear_checkpoint()
+        assert store.load_checkpoint() is None
+    # The data outlives the store opened on it.
+    with SimulationStore(target) as store:
+        assert store.load_config().interphase.steps == 100
